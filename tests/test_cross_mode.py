@@ -8,8 +8,8 @@ JAX pipeline.
 
 import pytest
 
-from rust_seq2kminmers_tpu.api import kminmers_list
-from rust_seq2kminmers_tpu.oracle import HashMode, kminmers as oracle_kminmers
+from seq2kminmers.api import kminmers_list
+from seq2kminmers.oracle import HashMode, kminmers as oracle_kminmers
 
 GRID_L = [5, 7, 11, 17, 25, 31]
 GRID_K = [2, 5, 8]

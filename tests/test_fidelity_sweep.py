@@ -28,8 +28,8 @@ import zlib
 import numpy as np
 import pytest
 
-from rust_seq2kminmers_tpu.api import kminmers_batch
-from rust_seq2kminmers_tpu.constants import (
+from seq2kminmers.api import kminmers_batch
+from seq2kminmers.constants import (
     XCODE_PAD,
     encode_xcodes,
     family_of_mode,
@@ -38,9 +38,9 @@ from rust_seq2kminmers_tpu.constants import (
     hash_bound_simd_u32,
     hash_bound_u32,
 )
-from rust_seq2kminmers_tpu.oracle import HashMode
-from rust_seq2kminmers_tpu.oracle import kminmers as oracle_kminmers
-from rust_seq2kminmers_tpu.ops.pipeline import PipelineSpec
+from seq2kminmers.oracle import HashMode
+from seq2kminmers.oracle import kminmers as oracle_kminmers
+from seq2kminmers.ops.pipeline import PipelineSpec
 
 U64 = np.uint64
 M64 = U64(0xFFFFFFFFFFFFFFFF)
@@ -310,16 +310,14 @@ def test_fidelity_sweep(combo):
         assert got == ref, (combo, i, "pipeline vs literal")
 
 
-# ---- fused-kernel sweep -------------------------------------------------
-# The cases above run the pure-XLA pipeline on CPU (use_fused is False off
-# TPU); this block drives the PRODUCTION fused Pallas kernel in interpret
-# mode over a reduced combo grid so its per-mode conventions are also
-# pinned to the literal checker without a chip (the on-chip TESTS_TPU
-# suite re-validates a subset Mosaic-lowered).  Sequences are long enough
-# (> 2 kernel block rows at the small-block interpret geometry) to cross
-# block boundaries, with homopolymer bombs and garbage bytes.
+# ---- chunked-scan sweep -------------------------------------------------
+# The cases above run each read whole through the batch pipeline; this
+# block cuts the reads into 1000-base chunks scanned one step at a time
+# (ops/long_read.py over ops/scan.py), so every per-mode convention is
+# also pinned to the literal checker across chunk boundaries, with
+# homopolymer bombs and garbage bytes spanning them.
 
-FUSED_COMBOS = [
+CHUNKED_COMBOS = [
     ("regular", 32, "nthash1", 13, 4, 0.08),
     ("simd", 32, "nthash1", 27, 2, 0.15),
     ("hpc", 32, "nthash1", 9, 3, 0.2),
@@ -337,10 +335,12 @@ FUSED_COMBOS = [
 
 @pytest.mark.parametrize(
     "combo",
-    FUSED_COMBOS,
-    ids=[f"{m}-w{w}-{v}-l{l}" for m, w, v, l, k, d in FUSED_COMBOS],
+    CHUNKED_COMBOS,
+    ids=[f"{m}-w{w}-{v}-l{l}" for m, w, v, l, k, d in CHUNKED_COMBOS],
 )
-def test_fused_kernel_fidelity(combo):
+def test_chunked_scan_fidelity(combo):
+    from seq2kminmers.ops.long_read import kminmers_long_batch
+
     mode, width, variant, l, k, d = combo
     rng = np.random.default_rng(zlib.crc32(repr(combo).encode()))
     family = family_of_mode(mode)
@@ -362,29 +362,15 @@ def test_fused_kernel_fidelity(combo):
             parts.append(p)
             m += len(p)
         seqs.append(np.frombuffer(b"".join(parts)[:n], dtype=np.uint8))
-    codes = np.full((len(seqs), L), XCODE_PAD, dtype=np.uint8)
-    lengths = np.zeros(len(seqs), dtype=np.int32)
-    for i, b in enumerate(seqs):
-        x = encode_xcodes(b, family)
-        codes[i, : len(x)] = x
-        lengths[i] = len(x)
-    spec = PipelineSpec(
-        l=l, k=k, density=d, mode=mode, hash_width=width, variant=variant,
-        compaction="fused_interpret",
+    got = kminmers_long_batch(
+        [encode_xcodes(b, family) for b in seqs], l, k, d, mode=mode,
+        variant=variant, chunk=1000, hash_width=width,
     )
-    out = kminmers_batch(codes, lengths, spec)  # retries recover overflow
-    n_km = np.asarray(out.n_kminmers)
-    hi = np.asarray(out.hash_hi, dtype=np.uint64)
-    lo = np.asarray(out.hash_lo, dtype=np.uint64)
-    st = np.asarray(out.start)
-    en = np.asarray(out.end)
-    rv = np.asarray(out.rev)
     for i, b in enumerate(seqs):
         ref = lit_kminmers(b, l, k, d, mode, width, variant)
-        nk = int(n_km[i])
-        got = [
-            (int((hi[i, w] << np.uint64(32)) | lo[i, w]), int(st[i, w]),
-             int(en[i, w]), w, bool(rv[i, w]))
-            for w in range(nk)
-        ]
-        assert got == ref, (combo, i, len(got), len(ref))
+        g = got[i]
+        rows = list(zip(
+            g["hash"].tolist(), g["start"].tolist(), g["end"].tolist(),
+            g["offset"].tolist(), g["rev"].tolist(),
+        ))
+        assert rows == ref, (combo, i, len(rows), len(ref))

@@ -5,8 +5,8 @@ oracle for the whole framework."""
 import numpy as np
 import pytest
 
-from rust_seq2kminmers_tpu.api import KminmersIterator, kminmers_list
-from rust_seq2kminmers_tpu.oracle import HashMode, kminmers as oracle_kminmers
+from seq2kminmers.api import KminmersIterator, kminmers_list
+from seq2kminmers.oracle import HashMode, kminmers as oracle_kminmers
 
 # Golden k-min-mer hashes for KminmersIterator(l=10, k=5, d=0.0001, Regular)
 # with the active H=u32 configuration (reference tests/main.rs:41-57).
@@ -75,7 +75,7 @@ def test_jax_pipeline_goldens(ecoli_seq):
 
 @pytest.mark.parametrize("mode", list(HashMode))
 def test_jax_matches_oracle_all_modes(ecoli_seq, mode):
-    """Full-record equality (hash, start, end, offset, rev) between the TPU
+    """Full-record equality (hash, start, end, offset, rev) between the JAX
     pipeline and the numpy oracle on the golden fixture."""
     got = kminmers_list(ecoli_seq, 10, 5, 0.0005, mode)
     ref = oracle_kminmers(ecoli_seq, 10, 5, 0.0005, mode)

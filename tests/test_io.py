@@ -8,13 +8,13 @@ The native reader replaces the reference's rust-parallelfastx dependency
 import numpy as np
 import pytest
 
-from rust_seq2kminmers_tpu.constants import (
+from seq2kminmers.constants import (
     BYTE_TO_CODE,
     CODE_PAD,
     XCODE_PAD,
     encode_xcodes,
 )
-from rust_seq2kminmers_tpu.io.fasta import FastaFile
+from seq2kminmers.io.fasta import FastaFile
 
 FASTA = """>r1 first record
 ACGTACGTNNACGT

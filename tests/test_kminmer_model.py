@@ -9,7 +9,7 @@ positions are payload.
 import numpy as np
 import pytest
 
-from rust_seq2kminmers_tpu.kminmer import (
+from seq2kminmers.kminmer import (
     KminmerVec,
     SipHash13,
     fxhash32_of_mers,
@@ -19,7 +19,7 @@ from rust_seq2kminmers_tpu.kminmer import (
     kminmers_vec,
     siphash13_of_mers,
 )
-from rust_seq2kminmers_tpu.oracle import HashMode, kminmers
+from seq2kminmers.oracle import HashMode, kminmers
 
 
 def test_normalize_picks_lexicographic_min():

@@ -2,7 +2,7 @@
 CPU mesh must produce the IDENTICAL globally ordered k-min-mer stream as a
 single-process run.
 
-This is the TPU-native scaling of the reference's thread-pool data
+This is the multi-host scaling of the reference's thread-pool data
 parallelism (reference src/main.rs:65-79) to hosts: per-host packing of its
 own record rows, one global mesh, counts-only collective for ordering, and
 per-host ordered chunks whose concatenation is the global stream."""
@@ -41,11 +41,11 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, os.getcwd())
-from rust_seq2kminmers_tpu.parallel.multihost import init_distributed
+from seq2kminmers.parallel.multihost import init_distributed
 
 init_distributed(f"localhost:{port}", num_processes=2, process_id=pid)
-from rust_seq2kminmers_tpu.parallel.multihost import run_file_distributed
-from rust_seq2kminmers_tpu.ops.pipeline import PipelineSpec
+from seq2kminmers.parallel.multihost import run_file_distributed
+from seq2kminmers.ops.pipeline import PipelineSpec
 
 assert jax.process_count() == 2 and len(jax.devices()) == 8
 CONFIGS = __CONFIGS__
@@ -93,9 +93,9 @@ def test_distributed_overflow_recovery(tmp_path):
 
     import numpy as np
 
-    from rust_seq2kminmers_tpu.oracle import HashMode, kminmers
-    from rust_seq2kminmers_tpu.ops.pipeline import PipelineSpec
-    from rust_seq2kminmers_tpu.parallel.multihost import (
+    from seq2kminmers.oracle import HashMode, kminmers
+    from seq2kminmers.ops.pipeline import PipelineSpec
+    from seq2kminmers.parallel.multihost import (
         global_data_mesh,
         run_file_distributed,
     )
@@ -106,7 +106,7 @@ def test_distributed_overflow_recovery(tmp_path):
     p.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(seqs)))
     # density 0.4 with capacity for ~8 minimizers: guaranteed overflow
     spec = PipelineSpec(
-        l=9, k=3, density=0.4, mode="regular", max_minimizers=8, slots=8
+        l=9, k=3, density=0.4, mode="regular", max_minimizers=8
     )
     chunks = run_file_distributed(
         p, spec, mesh=global_data_mesh(), rows_per_device=2
@@ -145,7 +145,7 @@ def test_two_process_stream_matches_single(fasta_file, tmp_path):
     for p, o in zip(procs, outs):
         assert p.returncode == 0, o[-4000:]
 
-    from rust_seq2kminmers_tpu.oracle import HashMode, kminmers
+    from seq2kminmers.oracle import HashMode, kminmers
 
     for sub, mode, l, k, d, hw, variant in WORKER_CONFIGS:
         cdir = out / sub

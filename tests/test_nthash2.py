@@ -11,18 +11,18 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rust_seq2kminmers_tpu.api import kminmers_list
-from rust_seq2kminmers_tpu.constants import (
+from seq2kminmers.api import kminmers_list
+from seq2kminmers.constants import (
     encode_bases,
     hash_bound_nthash2_31,
     hash_bound_simd_u32,
 )
-from rust_seq2kminmers_tpu.oracle import (
+from seq2kminmers.oracle import (
     HashMode,
     kminmers as oracle_kminmers,
     sliding_nthash2_31,
 )
-from rust_seq2kminmers_tpu.ops.nthash import (
+from seq2kminmers.ops.nthash import (
     sliding_nthash2_31 as jax_nthash2,
 )
 
@@ -100,38 +100,23 @@ def test_pipeline_nthash2_matches_oracle(rng, mode):
 
 @pytest.mark.parametrize("l", [35, 63, 129])
 @pytest.mark.parametrize("mode", ["regular", "hpcsimd"])
-def test_fused_kernel_nthash2_matches_oracle(rng, mode, l):
-    """The PRODUCTION fused Pallas path (31-bit rotate lanes in-kernel,
-    interpret mode) with variant=nthash2 at l > 31, element-exact vs the
-    oracle."""
-    from rust_seq2kminmers_tpu.constants import XCODE_PAD, encode_xcodes
-    from rust_seq2kminmers_tpu.ops.pipeline import (
-        PipelineSpec,
-        kminmer_pipeline,
-    )
-    from rust_seq2kminmers_tpu.ops.u64 import to_py_u64
+def test_chunked_scan_nthash2_matches_oracle(rng, mode, l):
+    """variant=nthash2 at l > 31 through the carry-aware scan cut into
+    chunks (the mod-31 rank carry crosses every chunk boundary),
+    element-exact vs the oracle."""
+    from seq2kminmers.ops.long_read import kminmers_long
 
     seq = "".join(rng.choice(list("AACCGGTTAANN"), size=2500))
-    L = 4096
-    codes = np.full((1, L), XCODE_PAD, dtype=np.uint8)
-    x = encode_xcodes(seq, "simd" if mode == "hpcsimd" else "scalar")
-    codes[0, : len(x)] = x
-    lengths = np.array([len(x)], dtype=np.int32)
-    spec = PipelineSpec(
-        l=l, k=3, density=0.08, mode=mode, max_minimizers=512,
-        variant="nthash2", compaction="fused_interpret",
-    )
-    out = jax.jit(lambda c, n: kminmer_pipeline(c, n, spec))(
-        jnp.asarray(codes), jnp.asarray(lengths)
+    got = kminmers_long(
+        seq, l, 3, 0.08, mode=mode, variant="nthash2", chunk=700
     )
     ref = oracle_kminmers(
         seq, l, 3, 0.08, HashMode(mode), variant="nthash2"
     )
-    nk = int(out.n_kminmers[0])
+    nk = len(got["hash"])
     assert nk == len(ref) and len(ref) > 0, (mode, l)
-    hashes = to_py_u64((out.hash_hi[0, :nk], out.hash_lo[0, :nk]))
     for w, r in enumerate(ref):
-        assert int(hashes[w]) == r.hash, (mode, l, w)
-        assert int(out.start[0, w]) == r.start
-        assert int(out.end[0, w]) == r.end
-        assert bool(out.rev[0, w]) == r.rev
+        assert int(got["hash"][w]) == r.hash, (mode, l, w)
+        assert int(got["start"][w]) == r.start
+        assert int(got["end"][w]) == r.end
+        assert bool(got["rev"][w]) == r.rev

@@ -1,12 +1,12 @@
-"""Unit tests for the low-level TPU ops: u64 pair arithmetic, XOR-scan
+"""Unit tests for the low-level device ops: u64 pair arithmetic, XOR-scan
 NtHash, and edge-case behavior of the pipeline."""
 
 import numpy as np
 import pytest
 
-from rust_seq2kminmers_tpu.api import kminmers_list
-from rust_seq2kminmers_tpu.constants import encode_bases
-from rust_seq2kminmers_tpu.oracle import (
+from seq2kminmers.api import kminmers_list
+from seq2kminmers.constants import encode_bases
+from seq2kminmers.oracle import (
     HashMode,
     kminmers as oracle_kminmers,
     minimizers as oracle_minimizers,
@@ -28,7 +28,7 @@ class TestU64Pairs:
         return vals, (hi, lo)
 
     def test_rol64(self, rng):
-        from rust_seq2kminmers_tpu.ops.u64 import rol64, to_py_u64
+        from seq2kminmers.ops.u64 import rol64, to_py_u64
 
         vals, pair = self._pairs(rng)
         r = rng.integers(0, 64, size=len(vals), dtype=np.uint32)
@@ -43,7 +43,7 @@ class TestU64Pairs:
         np.testing.assert_array_equal(got, want)
 
     def test_min_lt(self, rng):
-        from rust_seq2kminmers_tpu.ops.u64 import lt2, min2, to_py_u64
+        from seq2kminmers.ops.u64 import lt2, min2, to_py_u64
 
         va, pa = self._pairs(rng)
         vb, pb = self._pairs(rng)
@@ -53,8 +53,8 @@ class TestU64Pairs:
     def test_mixhash(self, rng):
         import jax.numpy as jnp
 
-        from rust_seq2kminmers_tpu.oracle import mixhash_u32
-        from rust_seq2kminmers_tpu.ops.u64 import mix64_from_u32, to_py_u64
+        from seq2kminmers.oracle import mixhash_u32
+        from seq2kminmers.ops.u64 import mix64_from_u32, to_py_u64
 
         x = rng.integers(0, 2**32, size=4096, dtype=np.uint32)
         got = to_py_u64(mix64_from_u32(jnp.asarray(x)))
@@ -66,7 +66,7 @@ class TestSlidingNtHash:
     def test_matches_numpy_oracle(self, rng, l):
         import jax.numpy as jnp
 
-        from rust_seq2kminmers_tpu.ops.nthash import sliding_nthash32
+        from seq2kminmers.ops.nthash import sliding_nthash32
 
         seq = _rand_seq(rng, 500, "ACGTN")
         codes = encode_bases(seq)
@@ -124,7 +124,7 @@ class TestEdgeCases:
         assert [r.hash for r in got] == [r.hash for r in ref]
 
     def test_simd_l_limit(self):
-        from rust_seq2kminmers_tpu.api import KSizeTooBig
+        from seq2kminmers.api import KSizeTooBig
 
         with pytest.raises(KSizeTooBig):
             kminmers_list("ACGT" * 30, 32, 2, 0.5, "simd")

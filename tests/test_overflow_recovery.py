@@ -1,17 +1,16 @@
 """Overflow recovery: dense low-bound regions must never silently drop
 minimizers — the reference's drain buffers grow per survivor
-(src/nthash_avx512_32.rs:139-141), so the TPU pipeline's fixed capacities
-(per-row survivor slots, compacted stream M) are backed by a host-side
-retry loop (api.kminmers_batch) that re-runs with doubled slots / exact
-capacity until nothing is dropped."""
+(src/nthash_avx512_32.rs:139-141), so the pipeline's fixed minimizer
+capacity M is backed by a host-side retry loop (api.kminmers_batch) that
+re-runs with M raised to the raw count until nothing is dropped."""
 
 import numpy as np
 import pytest
 
-from rust_seq2kminmers_tpu.api import kminmers_batch, kminmers_list
-from rust_seq2kminmers_tpu.oracle import HashMode, kminmers as oracle_kminmers
-from rust_seq2kminmers_tpu.ops.pipeline import PipelineSpec
-from rust_seq2kminmers_tpu.constants import XCODE_PAD, encode_xcodes
+from seq2kminmers.api import kminmers_batch, kminmers_list
+from seq2kminmers.oracle import HashMode, kminmers as oracle_kminmers
+from seq2kminmers.ops.pipeline import PipelineSpec
+from seq2kminmers.constants import XCODE_PAD, encode_xcodes
 
 
 @pytest.mark.parametrize("mode", ["regular", "hpcsimd"])
@@ -35,9 +34,9 @@ def test_batch_recovery_no_drops(rng):
         rows.append("".join(rng.choice(list("ACGT"), size=L)))
     codes = np.stack([encode_xcodes(s, "scalar") for s in rows])
     lengths = np.full(B, L, dtype=np.int32)
-    # small initial capacity + high density forces both overflow kinds
+    # small initial capacity + high density forces an M overflow
     spec = PipelineSpec(
-        l=9, k=4, density=0.5, mode="regular", max_minimizers=256, slots=8
+        l=9, k=4, density=0.5, mode="regular", max_minimizers=256
     )
     out = kminmers_batch(codes, lengths, spec)
     n_raw = np.asarray(out.n_minimizers_raw)
@@ -55,11 +54,11 @@ def test_batch_recovery_no_drops(rng):
 
 
 def test_rescue_single_retry_and_executable_reuse(rng, monkeypatch):
-    """Recovery must (a) resolve a slots/rows overflow in ONE retry on the
-    lossless rescue configuration and (b) reuse the SAME pipeline object —
-    hence the same jit executable — for every later recovery at that
-    shape, instead of compiling new doubled shapes (VERDICT r2 #8)."""
-    from rust_seq2kminmers_tpu import api
+    """Recovery must (a) resolve an m_cap overflow in ONE retry and (b)
+    reuse the SAME pipeline object — hence the same jit executable — for a
+    later recovery of a similar batch, because the raised M is rounded to
+    a power of two instead of compiled per raw count."""
+    from seq2kminmers import api
 
     calls = []
     orig = api._cached_pipeline
@@ -70,12 +69,9 @@ def test_rescue_single_retry_and_executable_reuse(rng, monkeypatch):
 
     monkeypatch.setattr(api, "_cached_pipeline", spy)
     B, L = 2, 1024
+    # ~600 of 1016 windows pass at d=0.6: far beyond M = 64
     spec = PipelineSpec(
-        l=9, k=2, density=0.6, mode="regular",
-        compaction="fused_interpret",  # force the fused path on the CPU
-        # test mesh so the kernel capacities are actually in play
-        slots=8, rows_out=8, max_minimizers=2048,  # M is ample: only the
-        # kernel capacities overflow, so NO m_cap reshape is needed
+        l=9, k=2, density=0.6, mode="regular", max_minimizers=64
     )
 
     def overflowing_batch(seed):
@@ -88,8 +84,9 @@ def test_rescue_single_retry_and_executable_reuse(rng, monkeypatch):
     out = kminmers_batch(codes, lengths, spec)
     assert (np.asarray(out.n_minimizers) >= np.asarray(out.n_minimizers_raw)).all()
     assert len(calls) == 2, "must recover in exactly one retry"
-    assert calls[1] == api.rescue_spec(spec)
-    assert calls[1].max_minimizers == 2048, "no m_cap reshape"
+    raw = int(np.asarray(out.n_minimizers_raw).max())
+    assert calls[1] == api.rescue_spec(spec, raw)
+    assert calls[1].max_minimizers == 1024, "M rounds up to a power of two"
     ref = oracle_kminmers(rows[0], 9, 2, 0.6, HashMode.Regular)
     assert int(np.asarray(out.n_kminmers)[0]) == len(ref)
 

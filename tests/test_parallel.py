@@ -4,13 +4,13 @@ shard_map pipeline, ordered merge, and sequence-sharded SPMD execution."""
 import numpy as np
 import pytest
 
-from rust_seq2kminmers_tpu.constants import (
+from seq2kminmers.constants import (
     CODE_TO_BYTE,
     XCODE_PAD,
     with_keep_bits,
 )
-from rust_seq2kminmers_tpu.oracle import HashMode, kminmers as oracle_kminmers
-from rust_seq2kminmers_tpu.ops.pipeline import PipelineSpec, kminmer_pipeline
+from seq2kminmers.oracle import HashMode, kminmers as oracle_kminmers
+from seq2kminmers.ops.pipeline import PipelineSpec, kminmer_pipeline
 
 
 def _random_batch(rng, B, L, lmin=200):
@@ -29,11 +29,11 @@ def _decode(codes, length):
 def test_dp_pipeline_matches_oracle(rng, mode):
     import jax
 
-    from rust_seq2kminmers_tpu.parallel.driver import (
+    from seq2kminmers.parallel.driver import (
         make_dp_pipeline,
         merge_ordered,
     )
-    from rust_seq2kminmers_tpu.parallel.mesh import make_mesh
+    from seq2kminmers.parallel.mesh import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
@@ -62,8 +62,8 @@ def test_dp_pipeline_matches_oracle(rng, mode):
 def test_merge_ordered_large_batch(rng):
     """The stitch is vectorized O(total): validate it directly at B=10k
     against a per-read reference loop on synthetic padded outputs."""
-    from rust_seq2kminmers_tpu.ops.pipeline import KminmerBatch
-    from rust_seq2kminmers_tpu.parallel.driver import (
+    from seq2kminmers.ops.pipeline import KminmerBatch
+    from seq2kminmers.parallel.driver import (
         ShardedKminmers,
         merge_ordered,
     )
@@ -110,7 +110,7 @@ def test_sequence_sharded_spmd(rng):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from rust_seq2kminmers_tpu.parallel.mesh import make_mesh
+    from seq2kminmers.parallel.mesh import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")

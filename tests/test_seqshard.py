@@ -1,4 +1,4 @@
-"""Sequence-parallel SPMD pipeline (parallel/seqshard.py): the fused kernel
+"""Sequence-parallel SPMD pipeline (parallel/seqshard.py): the stage chain
 sharded over the 'seq' mesh axis with carry hand-off collectives must match
 the oracle bit-for-bit on the virtual 8-device CPU mesh, in every mode,
 including reads whose HPC runs span shard boundaries.
@@ -9,12 +9,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rust_seq2kminmers_tpu.constants import XCODE_PAD, encode_xcodes
-from rust_seq2kminmers_tpu.oracle import HashMode
-from rust_seq2kminmers_tpu.oracle import kminmers as oracle_kminmers
-from rust_seq2kminmers_tpu.ops.pipeline import PipelineSpec
-from rust_seq2kminmers_tpu.parallel.mesh import make_mesh
-from rust_seq2kminmers_tpu.parallel.seqshard import (
+from seq2kminmers.constants import XCODE_PAD, encode_xcodes
+from seq2kminmers.oracle import HashMode
+from seq2kminmers.oracle import kminmers as oracle_kminmers
+from seq2kminmers.ops.pipeline import PipelineSpec
+from seq2kminmers.parallel.mesh import make_mesh
+from seq2kminmers.parallel.seqshard import (
     make_seq_pipeline,
     stitch_segments,
 )
@@ -68,7 +68,7 @@ def test_seq_sharded_matches_oracle(rng, mode):
     codes, lengths, seqs = _mixed_batch(rng, B, L)
     l, k, d = 13, 3, 0.08
     spec = PipelineSpec(
-        l=l, k=k, density=d, mode=mode, compaction="fused_interpret"
+        l=l, k=k, density=d, mode=mode
     )
     fn = make_seq_pipeline(spec, mesh)
     with mesh:
@@ -84,7 +84,7 @@ def test_seq_sharded_two_shards_large_l(rng):
     codes, lengths, seqs = _mixed_batch(rng, B, L, lo_frac=0.3)
     l, k, d = 31, 2, 0.15
     spec = PipelineSpec(
-        l=l, k=k, density=d, mode="hpcsimd", compaction="fused_interpret"
+        l=l, k=k, density=d, mode="hpcsimd"
     )
     fn = make_seq_pipeline(spec, mesh)
     with mesh:
@@ -106,7 +106,7 @@ def test_seq_sharded_run_spanning_shards(rng):
     lengths = np.array([len(s)], dtype=np.int32)
     l, k, d = 13, 2, 0.2
     spec = PipelineSpec(
-        l=l, k=k, density=d, mode="hpc", compaction="fused_interpret"
+        l=l, k=k, density=d, mode="hpc"
     )
     fn = make_seq_pipeline(spec, mesh)
     with mesh:
@@ -121,14 +121,14 @@ def test_seq_sharded_rejects_misaligned_length():
     with pytest.raises(ValueError, match="multiple"):
         with mesh:
             fn(
-                jnp.zeros((2, 2048), dtype=jnp.uint8),
+                jnp.zeros((2, 2050), dtype=jnp.uint8),
                 jnp.array([100, 100], dtype=jnp.int32),
             )
 
 
 @pytest.mark.parametrize("width,mode", [(16, "regular"), (64, "regular"), (64, "hpc")])
 def test_seq_sharded_hash_widths(rng, width, mode):
-    """u16/u64 hash widths through the sequence-sharded fused path: the
+    """u16/u64 hash widths through the sequence-sharded path: the
     64-bit lanes' carry crosses 'seq' shard boundaries and the (hi, lo)
     pair rides the splice collective; u16 assembles via the murmur mix."""
     mesh = make_mesh(n_data=2, n_seq=4)
@@ -137,7 +137,6 @@ def test_seq_sharded_hash_widths(rng, width, mode):
     l, k, d = 13, 3, 0.08
     spec = PipelineSpec(
         l=l, k=k, density=d, mode=mode, hash_width=width,
-        compaction="fused_interpret",
     )
     fn = make_seq_pipeline(spec, mesh)
     with mesh:
@@ -166,7 +165,7 @@ def test_seq_sharded_halo_spans_many_shards(rng):
     codes, lengths, seqs = _mixed_batch(rng, B, L, lo_frac=0.9)
     l, k, d = 13, 7, 0.004
     spec = PipelineSpec(
-        l=l, k=k, density=d, mode="regular", compaction="fused_interpret"
+        l=l, k=k, density=d, mode="regular"
     )
     fn = make_seq_pipeline(spec, mesh)
     with mesh:
@@ -182,7 +181,7 @@ def test_seq_sharded_k1_no_halo(rng):
     codes, lengths, seqs = _mixed_batch(rng, B, L)
     l, k, d = 11, 1, 0.05
     spec = PipelineSpec(
-        l=l, k=k, density=d, mode="hpcsimd", compaction="fused_interpret"
+        l=l, k=k, density=d, mode="hpcsimd"
     )
     fn = make_seq_pipeline(spec, mesh)
     with mesh:

@@ -13,12 +13,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rust_seq2kminmers_tpu.constants import XCODE_PAD, encode_xcodes, family_of_mode
-from rust_seq2kminmers_tpu.oracle import HashMode
-from rust_seq2kminmers_tpu.oracle import kminmers as oracle_kminmers
-from rust_seq2kminmers_tpu.ops.pipeline import PipelineSpec
-from rust_seq2kminmers_tpu.parallel.mesh import make_mesh
-from rust_seq2kminmers_tpu.parallel.seqshard import (
+from seq2kminmers.constants import XCODE_PAD, encode_xcodes, family_of_mode
+from seq2kminmers.oracle import HashMode
+from seq2kminmers.oracle import kminmers as oracle_kminmers
+from seq2kminmers.ops.pipeline import PipelineSpec
+from seq2kminmers.parallel.mesh import make_mesh
+from seq2kminmers.parallel.seqshard import (
     make_seq_pipeline,
     stitch_segments,
 )
@@ -84,21 +84,19 @@ def test_seqshard_sweep(combo):
         codes[b, : len(s)] = encode_xcodes(s, fam)
     spec = PipelineSpec(
         l=l, k=k, density=d, mode=mode, hash_width=width, variant=variant,
-        compaction="fused_interpret",
     )
     fn = make_seq_pipeline(spec, mesh)
     with mesh:
         out = stitch_segments(fn(jnp.asarray(codes), jnp.asarray(lengths)))
     if (np.asarray(out.n_minimizers_raw) > np.asarray(out.n_minimizers)).any():
         # Dense homopolymer runs whose window hash clears the bound can
-        # overflow the density-derived per-row slots AND the per-shard
-        # phase-2 capacity (survivors may concentrate in one shard); the
-        # seqshard contract is report-don't-retry, so callers escalate to
-        # the lossless configuration with a raw-count-sized capacity —
+        # overflow the per-shard capacity (survivors may concentrate in
+        # one shard); the seqshard contract is report-don't-retry, so
+        # callers escalate with a raw-count-sized capacity —
         # api.rescue_spec, worth sweeping through the mesh itself.  S
         # scales the capacity because cap_s = capacity // S must cover a
         # maximally skewed shard.
-        from rust_seq2kminmers_tpu.api import rescue_spec
+        from seq2kminmers.api import rescue_spec
 
         spec = rescue_spec(
             spec, int(np.asarray(out.n_minimizers_raw).max()) * S

@@ -6,10 +6,10 @@ src/lib.rs:258-259, driven by the thread-pool main src/main.rs:65-79)."""
 import numpy as np
 import pytest
 
-from rust_seq2kminmers_tpu.io.stream import plan_buckets, stream_file
-from rust_seq2kminmers_tpu.io.stream import StreamingRunner
-from rust_seq2kminmers_tpu.ops.pipeline import PipelineSpec
-from rust_seq2kminmers_tpu.oracle import HashMode, kminmers
+from seq2kminmers.io.stream import plan_buckets, stream_file
+from seq2kminmers.io.stream import StreamingRunner
+from seq2kminmers.ops.pipeline import PipelineSpec
+from seq2kminmers.oracle import HashMode, kminmers
 
 
 def _write_fasta(path, seqs):
